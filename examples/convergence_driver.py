@@ -8,8 +8,7 @@ The "physics": explicit pseudo-time iteration of the heat equation
 ∂q/∂t = ∇²q to steady state (a Laplace solve with Dirichlet boundary).
 The Laplacian is built from two chained Green-Gauss sweeps — the classic
 gradient-of-gradient construction the reference's multi-round ghost layers
-exist for (SURVEY.md §3 "Multi-round ghost layers" / BASELINE.json
-config 5):
+exist for (SURVEY.md §3 "Multi-round ghost layers"):
 
     grad  = GG(q)            # model1: nvar=1 scalar → (gx, gy, gz)
     hess  = GG(gx, gy, gz)   # model2: nvar=3 → ∂d(gv)
@@ -22,7 +21,7 @@ the residual; without this the boundary's O(1) closure defect puts a floor
 under the residual and the "steady state" never registers as converged.
 
 Each outer step calls `refresh_state` on BOTH models — the solver-mode API
-(var halo exchange + source-table rebuild) — so ghosts stay consistent
+(the var halo exchange) — so ghosts stay consistent
 across shards at every step.  The residual must decay monotonically (up to
 explicit-scheme ripple); the driver stops at the target reduction, the step
 cap, or on divergence (NaN / growth), and reports which.
@@ -35,19 +34,12 @@ Run:
 import numpy as np
 
 import jax
-
-if jax.default_backend() not in ("tpu",):
-    try:
-        jax.config.update("jax_platforms", "cpu")
-    except RuntimeError:
-        pass
-
 import jax.numpy as jnp
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.mesh.partition import partition_mesh
-from cfd_proxy_tpu.models import GreenGaussPallas
-from cfd_proxy_tpu.ops.blocksweep import NV
+from cfd_proxy.mesh.generator import generate_mesh, make_state
+from cfd_proxy.mesh.partition import partition_mesh
+from cfd_proxy.models import GreenGaussSweep
+from cfd_proxy.ops.sweep import NV
 
 
 def drive(nx=10, ny=10, nz=8, nparts=None, dt=0.1, target=0.1,
@@ -59,8 +51,8 @@ def drive(nx=10, ny=10, nz=8, nparts=None, dt=0.1, target=0.1,
     nparts = nparts or min(4, jax.device_count())
     mesh = generate_mesh(nx, ny, nz, jitter=0.05, diag_frac=0.2, seed=0)
     parts = partition_mesh(mesh, nparts)
-    grad_model = GreenGaussPallas(parts, nvar=1)
-    div_model = GreenGaussPallas(parts, nvar=3)
+    grad_model = GreenGaussSweep(parts, nvar=1)
+    div_model = GreenGaussSweep(parts, nvar=3)
     ndev = grad_model.layout.ndev
 
     # interior = closed dual cell: the ± face normals of a point sum to ~0.
@@ -83,10 +75,7 @@ def drive(nx=10, ny=10, nz=8, nparts=None, dt=0.1, target=0.1,
               f"shard(s); dt={dt} schedule={schedule}")
 
     q = make_state(mesh.npoint, 1, seed=1)
-    # only `schedule` is ever stepped — skip the unused table classes (the
-    # pack is the dominant per-step cost; gradients_pallas.py solver-mode
-    # guidance)
-    state1 = grad_model.distribute_state(q, schedules=[schedule])
+    state1 = grad_model.distribute_state(q)
 
     def laplacian(state1):
         grad = grad_model.step(state1, schedule)        # (P, 3·NV, ndev)
@@ -94,7 +83,7 @@ def drive(nx=10, ny=10, nz=8, nparts=None, dt=0.1, target=0.1,
         g3 = grad[:, ::NV, :]                           # (P, 3, ndev)
         var2 = jnp.concatenate(
             [g3, jnp.zeros((nparts, NV - 3, ndev), jnp.float32)], axis=1)
-        state2 = div_model.refresh_state(var2, schedules=[schedule])
+        state2 = div_model.refresh_state(var2)
         hess = div_model.step(state2, schedule)
         # trace: ∂x gx + ∂y gy + ∂z gz  (row d·NV+v of the second sweep)
         return hess[:, 0 * NV + 0] + hess[:, 1 * NV + 1] + hess[:, 2 * NV + 2]
@@ -127,8 +116,7 @@ def drive(nx=10, ny=10, nz=8, nparts=None, dt=0.1, target=0.1,
         upd_rows = jnp.concatenate(
             [updv[:, None, :],
              jnp.zeros((nparts, NV - 1, ndev), jnp.float32)], axis=1)
-        state1 = grad_model.refresh_state(state1["var_T"] + upd_rows,
-                                          schedules=[schedule])
+        state1 = grad_model.refresh_state(state1["var_T"] + upd_rows)
     if verbose and residuals:
         print(f"{status} after {step + 1} steps "
               f"(residual {residuals[0]:.4f} -> {residuals[-1]:.4f})")

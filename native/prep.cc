@@ -1,201 +1,15 @@
-// Native mesh-preprocessing kernels for cfd_proxy_tpu.
-//
-// The reference implements its rangelist/comm setup in C (rangelist.c,
-// setup_comm.c; SURVEY.md §2 L2/L3); this is the rebuild's native equivalent:
-// the block-plan construction of ops/blocksweep.py (directed-incidence slot
-// tables + per-block ext lists), which dominates host-side setup time on
-// multi-million-face meshes in the NumPy implementation.
-//
-// Key algorithmic choice vs the NumPy path: incidences are bucketed by
-// destination point with a counting sort while ITERATING FACES IN ORDER
-// (side 0 then side 1 per face), which makes each point's slot order equal to
-// incidence-id order with no comparison sort at all — O(F) total.  The size
-// pass counts unique ext endpoints with a per-block STAMP array (no sort);
-// only the fill pass sorts, once, to build the rank-ordered ext lists.
+// ABI handshake for the native library of cfd_proxy (partition.cc: RCB and
+// ghost closure; golden.cc: the C golden sweep).
 //
 // Exposed via a C ABI for ctypes (no pybind11 in this environment).
 
-#include <algorithm>
-#include <cstdint>
-#include <cstring>
-#include <vector>
-
-namespace {
-
-// Bucket cross-block endpoints by block (counting sort over selected faces).
-// A slot exists only if its DESTINATION endpoint is < dst_lt (ghost-dst drop;
-// see build_block_plan) — the ext entry belongs to the dst's block.
-// Returns false on an out-of-range endpoint — a corrupt mesh must fail
-// cleanly (same convention as cfd_ghosts_run in partition.cc), not scribble
-// on the heap.
-bool bucket_ext(const int32_t* faces, int64_t nface, const uint8_t* face_sel,
-                int64_t npoint_dev, int32_t bp, int64_t dst_lt, int64_t nblk,
-                std::vector<int64_t>& off, std::vector<int64_t>& tmp) {
-  std::vector<int32_t> cnt(nblk, 0);
-  for (int64_t f = 0; f < nface; ++f) {
-    if (face_sel && !face_sel[f]) continue;
-    const int32_t p0 = faces[2 * f], p1 = faces[2 * f + 1];
-    if (p0 < 0 || p0 >= npoint_dev || p1 < 0 || p1 >= npoint_dev) return false;
-    const int64_t b0 = p0 / bp, b1 = p1 / bp;
-    if (p0 < dst_lt && b1 != b0) cnt[b0]++;
-    if (p1 < dst_lt && b0 != b1) cnt[b1]++;
-  }
-  off.assign(nblk + 1, 0);
-  for (int64_t b = 0; b < nblk; ++b) off[b + 1] = off[b] + cnt[b];
-  tmp.resize(off[nblk]);
-  std::vector<int64_t> pos(off.begin(), off.end() - 1);
-  for (int64_t f = 0; f < nface; ++f) {
-    if (face_sel && !face_sel[f]) continue;
-    const int32_t p0 = faces[2 * f], p1 = faces[2 * f + 1];
-    const int64_t b0 = p0 / bp, b1 = p1 / bp;
-    if (p0 < dst_lt && b1 != b0) tmp[pos[b0]++] = p1;
-    if (p1 < dst_lt && b0 != b1) tmp[pos[b1]++] = p0;
-  }
-  return true;
-}
-
-}  // namespace
-
 extern "C" {
 
-// ABI handshake: bump whenever ANY exported signature in this library
-// (prep.cc, partition.cc, golden.cc) changes.  The ctypes loader
-// (cfd_proxy_tpu/native/__init__.py::_bind) refuses a library whose version
-// differs from its expected constant, so a stale in-tree .so fails the
-// handshake and flows into the rebuild-via-temp-copy path instead of being
-// called with a mismatched argument list (silent heap corruption).
-int cfd_abi_version(void) { return 4; }
-
-// Pass 1: sizes.  Computes per-class maxima needed to allocate outputs.
-//   dst_lt:     slots whose destination endpoint is >= dst_lt do not exist
-//               (ghost-destination drop; pass npoint_dev for no drop)
-//   kmax_out:   max slots per point
-//   extmax_out: max unique external endpoints per block
-//   touched:    (npoint_dev/bp,) 1 if any selected face targets the block
-// Returns 0 on success, nonzero on invalid input (4 = face endpoint out of
-// [0, npoint_dev) — heap safety; see bucket_ext).
-int cfd_plan_sizes(const int32_t* faces, int64_t nface,
-                   const uint8_t* face_sel, int64_t npoint_dev, int32_t bp,
-                   int64_t dst_lt,
-                   int32_t* kmax_out, int32_t* extmax_out, uint8_t* touched) {
-  if (npoint_dev % bp != 0) return 1;
-  const int64_t nblk = npoint_dev / bp;
-  std::vector<int32_t> deg(npoint_dev, 0);
-  std::memset(touched, 0, nblk);
-
-  for (int64_t f = 0; f < nface; ++f) {
-    if (face_sel && !face_sel[f]) continue;
-    const int32_t p0 = faces[2 * f], p1 = faces[2 * f + 1];
-    if (p0 < 0 || p0 >= npoint_dev || p1 < 0 || p1 >= npoint_dev) return 4;
-    if (p0 < dst_lt) {
-      deg[p0]++;
-      touched[p0 / bp] = 1;
-    }
-    if (p1 < dst_lt) {
-      deg[p1]++;
-      touched[p1 / bp] = 1;
-    }
-  }
-  int32_t kmax = 0;
-  for (int64_t p = 0; p < npoint_dev; ++p) kmax = std::max(kmax, deg[p]);
-
-  // unique-ext count per block via stamping — no sort in the size pass
-  std::vector<int64_t> off, tmp;
-  if (!bucket_ext(faces, nface, face_sel, npoint_dev, bp, dst_lt, nblk, off,
-                  tmp))
-    return 4;
-  int32_t extmax = 0;
-  std::vector<int64_t> stamp(npoint_dev, -1);
-  for (int64_t b = 0; b < nblk; ++b) {
-    int32_t n = 0;
-    for (int64_t i = off[b]; i < off[b + 1]; ++i) {
-      if (stamp[tmp[i]] != b) {
-        stamp[tmp[i]] = b;
-        n++;
-      }
-    }
-    extmax = std::max(extmax, n);
-  }
-  *kmax_out = kmax;
-  *extmax_out = extmax;
-  return 0;
-}
-
-// Pass 2: fill slot tables in COMPACT row layout.
-//   blk_pos:  (npoint_dev/bp,) int32 — output row per device block, or -1
-//             for blocks that must receive no face (else error 5)
-//   slot_idx: (nrows, K, bp) int32, zero-filled by caller
-//   slot_w:   (nrows, K, 3, bp) float32, zero-filled by caller
-//   ext_idx:  (nrows, ep) int32, zero-filled by caller
-//   ext_cnt:  (nrows,) int32
-// Slot W-indexing: own columns [0,bp), ext columns bp+rank (rank in the
-// block's sorted ext list).  Returns 0 on success; 2 = ext overflow,
-// 3 = slot overflow, 4 = endpoint out of range, 5 = face targets a block
-// with blk_pos < 0.
-int cfd_plan_fill(const int32_t* faces, int64_t nface, const double* normals,
-                  const uint8_t* face_sel, int64_t npoint_dev, int32_t bp,
-                  int64_t dst_lt, int32_t kslots, int32_t ep,
-                  const int32_t* blk_pos,
-                  int32_t* slot_idx, float* slot_w,
-                  int32_t* ext_idx, int32_t* ext_cnt) {
-  if (npoint_dev % bp != 0) return 1;
-  const int64_t nblk = npoint_dev / bp;
-
-  // per-block sorted ext lists (sorted ONCE, here — the size pass stamps)
-  std::vector<int64_t> off, tmp;
-  if (!bucket_ext(faces, nface, face_sel, npoint_dev, bp, dst_lt, nblk, off,
-                  tmp))
-    return 4;
-  for (int64_t b = 0; b < nblk; ++b) {
-    auto lo = tmp.begin() + off[b], hi = tmp.begin() + off[b + 1];
-    if (lo == hi) continue;
-    if (blk_pos[b] < 0) return 5;
-    std::sort(lo, hi);
-    const int64_t n = std::unique(lo, hi) - lo;
-    if (n > ep) return 2;
-    const int64_t row = blk_pos[b];
-    for (int64_t i = 0; i < n; ++i)
-      ext_idx[row * ep + i] = static_cast<int32_t>(*(lo + i));
-    ext_cnt[row] = static_cast<int32_t>(n);
-  }
-
-  // slot fill: iterate faces in order (side 0 then 1) -> incidence-id order
-  std::vector<int32_t> used(npoint_dev, 0);
-  const int64_t kbp = static_cast<int64_t>(kslots) * bp;
-  for (int64_t f = 0; f < nface; ++f) {
-    if (face_sel && !face_sel[f]) continue;
-    const double nx = normals[3 * f], ny = normals[3 * f + 1],
-                 nz = normals[3 * f + 2];
-    for (int side = 0; side < 2; ++side) {
-      const int32_t dstp = faces[2 * f + side];
-      const int32_t othp = faces[2 * f + (1 - side)];
-      if (dstp >= dst_lt) continue;  // ghost-destination slot: dropped
-      const double s = side == 0 ? 1.0 : -1.0;
-      const int64_t b = dstp / bp;
-      if (blk_pos[b] < 0) return 5;
-      const int64_t row = blk_pos[b];
-      const int32_t lanep = dstp % bp;
-      const int32_t k = used[dstp]++;
-      if (k >= kslots) return 3;
-      // W-index of other endpoint
-      int32_t widx;
-      const int64_t ob = othp / bp;
-      if (ob == b) {
-        widx = othp % bp;
-      } else {
-        const int32_t* lo = ext_idx + row * ep;
-        const int32_t* hi = lo + ext_cnt[row];
-        widx = bp + static_cast<int32_t>(std::lower_bound(lo, hi, othp) - lo);
-      }
-      slot_idx[row * kbp + static_cast<int64_t>(k) * bp + lanep] = widx;
-      // slot_w layout (nrows, K, 3, bp): element (row, k, d, lane)
-      float* w = slot_w + ((row * kslots + k) * 3) * static_cast<int64_t>(bp);
-      w[0 * bp + lanep] = static_cast<float>(s * nx);
-      w[1 * bp + lanep] = static_cast<float>(s * ny);
-      w[2 * bp + lanep] = static_cast<float>(s * nz);
-    }
-  }
-  return 0;
-}
+// Bump whenever ANY exported signature in this library changes.  The ctypes
+// loader (cfd_proxy/native/__init__.py::_bind) refuses a library whose
+// version differs from its expected constant, so a stale in-tree .so fails
+// the handshake and flows into the rebuild-via-temp-copy path instead of
+// being called with a mismatched argument list (silent heap corruption).
+int cfd_abi_version(void) { return 5; }
 
 }  // extern "C"

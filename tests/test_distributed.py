@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.mesh.partition import partition_mesh
-from cfd_proxy_tpu.models import GreenGaussModel
-from cfd_proxy_tpu.ops.golden import compute_gradients_gg, scale_gradients
+from cfd_proxy.mesh.generator import generate_mesh, make_state
+from cfd_proxy.mesh.partition import partition_mesh
+from cfd_proxy.models import GreenGaussModel
+from cfd_proxy.ops.golden import compute_gradients_gg, scale_gradients
 
 NVAR = 5
 

@@ -1,12 +1,12 @@
-"""Secondary flux kernel: golden semantics + distributed Pallas model."""
+"""Secondary flux kernel: golden semantics + the distributed flux model."""
 
 import numpy as np
 import pytest
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.mesh.partition import partition_mesh
-from cfd_proxy_tpu.models import PSDFluxModel
-from cfd_proxy_tpu.ops.flux import compute_psd_flux, flux_residual_scale
+from cfd_proxy.mesh.generator import generate_mesh, make_state
+from cfd_proxy.mesh.partition import partition_mesh
+from cfd_proxy.models import PSDFluxModel
+from cfd_proxy.ops.flux import compute_psd_flux, flux_residual_scale
 
 NVAR = 5
 
@@ -41,15 +41,15 @@ def test_flux_upwind_limit(mesh):
     np.testing.assert_allclose(res, want, rtol=1e-9, atol=1e-10)
 
 
-@pytest.mark.parametrize("kernel", ["packed", "gather"])
+@pytest.mark.parametrize("ghost_layers", [1, 2])
 @pytest.mark.parametrize("npart", [1, 4])
-def test_flux_model_matches_golden(mesh, npart, kernel):
+def test_flux_model_matches_golden(mesh, npart, ghost_layers):
     gvar = make_state(mesh.npoint, NVAR, seed=7)
     gref = flux_residual_scale(
         compute_psd_flux(gvar.astype(np.float64), mesh.faces, mesh.normals),
         mesh.volume, mesh.npoint)
-    parts = partition_mesh(mesh, npart)
-    model = PSDFluxModel(parts, NVAR, bp=128, interpret=True, kernel=kernel)
+    parts = partition_mesh(mesh, npart, ghost_layers=ghost_layers)
+    model = PSDFluxModel(parts, NVAR)
     state = model.distribute_state(gvar)
     denom = max(1.0, np.abs(gref).max())
     outs = {}

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.ops.golden import compute_gradients_gg, scale_gradients
+from cfd_proxy.mesh.generator import generate_mesh, make_state
+from cfd_proxy.ops.golden import compute_gradients_gg, scale_gradients
 
 
 def test_two_face_mesh_by_hand():
@@ -82,13 +82,13 @@ def test_linear_field_exact_on_stretched_grid():
 
 
 def test_hub_mesh_valence_tail_and_pallas():
-    """The high-valence stress mode (round-5): hubs reach K ~16-20 (real
+    """The high-valence stress mode: hubs reach K ~16-20 (real
     TAU median-dual meshes carry such a tail near singular vertices; the
-    base generator tops out at 8).  The full Pallas path — plan build with
-    kslots at the tail max, compact prefixes, all schedules — must agree
-    with the f64 golden on the hub mesh."""
-    from cfd_proxy_tpu.mesh.partition import partition_mesh
-    from cfd_proxy_tpu.models import GreenGaussPallas
+    base generator tops out at 8).  The full sweep path — slot tables with
+    kslots at the tail max, all schedules — must agree with the f64 golden
+    on the hub mesh."""
+    from cfd_proxy.mesh.partition import partition_mesh
+    from cfd_proxy.models import GreenGaussSweep
 
     m = generate_mesh(10, 9, 8, jitter=0.05, diag_frac=0.2, shuffle=True,
                       seed=4, hub_frac=0.03, hub_extra=12)
@@ -103,8 +103,8 @@ def test_hub_mesh_valence_tail_and_pallas():
         compute_gradients_gg(var.astype(np.float64), m.faces, m.normals),
         m.volume, m.npoint).reshape(m.npoint, -1)
     parts = partition_mesh(m, 4)
-    model = GreenGaussPallas(parts, 5, bp=128, interpret=True)
-    assert max(model._dims[c][1] for c in ("bulk",)) >= 14  # kslots tracks K
+    model = GreenGaussSweep(parts, 5)
+    assert model.kslots["bulk"] >= 14  # kslots tracks K
     state = model.distribute_state(var)
     denom = max(1.0, np.abs(gref).max())
     for s in ("bulk", "early", "overlap"):
@@ -113,10 +113,10 @@ def test_hub_mesh_valence_tail_and_pallas():
 
 
 def test_stretched_mesh_pallas_f32_stress():
-    """The f32 Pallas path on the anisotropic family: volume scaling spans
+    """The f32 sweep path on the anisotropic family: volume scaling spans
     orders of magnitude; results stay within the documented f32 bound."""
-    from cfd_proxy_tpu.mesh.partition import partition_mesh
-    from cfd_proxy_tpu.models import GreenGaussPallas
+    from cfd_proxy.mesh.partition import partition_mesh
+    from cfd_proxy.models import GreenGaussSweep
 
     m = generate_mesh(8, 7, 20, jitter=0.03, diag_frac=0.2, shuffle=True,
                       seed=5, stretch=1.3)
@@ -125,7 +125,7 @@ def test_stretched_mesh_pallas_f32_stress():
         compute_gradients_gg(var.astype(np.float64), m.faces, m.normals),
         m.volume, m.npoint).reshape(m.npoint, -1)
     parts = partition_mesh(m, 4)
-    model = GreenGaussPallas(parts, 5, bp=128, interpret=True)
+    model = GreenGaussSweep(parts, 5)
     got = model.gather_global(
         np.asarray(model.step(model.distribute_state(var), "overlap")))
     # entry-wise RELATIVE error with a sane floor: absolute max alone is

@@ -4,21 +4,21 @@ import dataclasses
 
 import pytest
 
-from cfd_proxy_tpu.solver import SolverConfig
-from cfd_proxy_tpu.tools.mbench import _MODEL_FIELDS, main, parse_overrides
-from cfd_proxy_tpu.utils.errors import CheckError
+from cfd_proxy.solver import SolverConfig
+from cfd_proxy.tools.mbench import _MODEL_FIELDS, main, parse_overrides
+from cfd_proxy.utils.errors import CheckError
 
 
 def test_parse_overrides_types():
     base = SolverConfig()
     got = parse_overrides(
-        base, "src_dtype=bfloat16,bp=512,force_rdma=1,kcompact=off")
-    assert got.src_dtype == "bfloat16"
-    assert got.bp == 512 and isinstance(got.bp, int)
-    assert got.force_rdma is True
-    assert got.kcompact is False
+        base, "meta_dtype=bfloat16,nvar=5,solver_mode=1,sweeps_per_step=3")
+    assert got.meta_dtype == "bfloat16"
+    assert got.nvar == 5 and isinstance(got.nvar, int)
+    assert got.solver_mode is True
+    assert got.sweeps_per_step == 3
     # base is untouched (replace, not mutation)
-    assert base.src_dtype == "float32" and base.bp is None  # None = auto bp
+    assert base.meta_dtype == "float32" and base.nvar == 7
 
 
 def test_parse_overrides_rejects_unknown():
@@ -45,34 +45,34 @@ def test_model_fields_exist():
 def test_build_consumes_every_model_field():
     """Every _MODEL_FIELDS entry must be forwarded by _build — a field that
     parse_overrides accepts but _build drops makes both sides build the SAME
-    model and records a false ~1.00 verdict (pack_force was silently dropped
-    once: a segs-vs-gather A/B measured segs-vs-segs)."""
+    model and records a false ~1.00 verdict."""
     import inspect
 
-    from cfd_proxy_tpu.tools import mbench
+    from cfd_proxy.tools import mbench
 
     src = inspect.getsource(mbench._build)
     missing = [f for f in _MODEL_FIELDS if f"cfg.{f}" not in src]
     assert not missing, f"_build drops model fields: {missing}"
 
 
-def test_build_honors_pack_force():
-    from cfd_proxy_tpu.mesh.generator import generate_mesh
-    from cfd_proxy_tpu.mesh.partition import partition_mesh
-    from cfd_proxy_tpu.tools.mbench import _build
+def test_build_honors_dtypes():
+    from cfd_proxy.mesh.generator import generate_mesh
+    from cfd_proxy.mesh.partition import partition_mesh
+    from cfd_proxy.tools.mbench import _build
 
     m = generate_mesh(10, 9, 8, jitter=0.05, diag_frac=0.2, seed=0)
     parts = partition_mesh(m, 1, ghost_layers=1)
-    cfg = SolverConfig(min_phases=3, fake_sends=256, pack_force="gather")
+    cfg = SolverConfig(meta_dtype="bfloat16", halo_dtype="bfloat16",
+                       grad_dtype="bfloat16", model="flux")
     model = _build(cfg, parts)
-    assert model.pack_force == "gather"
-    assert "segs" not in model._pack_modes
-    assert "slice" not in model._pack_modes
+    assert (model.meta_dtype, model.halo_dtype, model.grad_dtype) == (
+        "bfloat16",) * 3
+    assert model.op == "flux"
 
 
 def test_mbench_shared_model_schedule_ab(capsys):
     """Schedule A/B on equal configs shares one model and emits the paired
-    ratio line.  Tiny mesh + interpret mode: ratios are mechanics-only."""
+    ratio line.  Tiny mesh on the CPU: ratios are mechanics-only."""
     rc = main(["--nx", "10", "--ny", "9", "--nz", "8", "--parts", "1",
                "--iters", "20", "--repeats", "2", "--warmup", "0",
                "--a", "schedule=bulk", "--b", "schedule=early", "--json"])

@@ -1,67 +1,23 @@
-"""Native (C++) preprocessing vs the NumPy reference construction.
+"""Native (C++) library: the C golden sweep and the loader's safety checks.
 
 The native library is optional (`make -C native`); tests skip when absent.
-Parity is exact: identical arrays, not just equivalent semantics.
 """
-
-import os
 
 import numpy as np
 import pytest
 
-import cfd_proxy_tpu.ops.blocksweep as bs
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.native import lib
+from cfd_proxy.mesh.generator import generate_mesh, make_state
+from cfd_proxy.native import lib
 
 
 pytestmark = pytest.mark.skipif(lib() is None, reason="native lib not built")
 
 
-@pytest.fixture(scope="module")
-def setup():
-    m = generate_mesh(12, 11, 10, jitter=0.05, diag_frac=0.3, seed=5)
-    ndev = bs.round_up(m.npoint, 128)
-    inv_scale = np.zeros(ndev)
-    inv_scale[: m.npoint] = 1.0 / m.volume
-    return m, ndev, inv_scale
-
-
-@pytest.mark.parametrize("subset,all_blocks,dst_lt", [
-    (False, True, None), (True, False, None), (True, True, None),
-    (False, True, 777), (True, True, 777),
-])
-def test_native_matches_numpy(setup, subset, all_blocks, dst_lt):
-    m, ndev, inv_scale = setup
-    sel = None
-    if subset:
-        sel = np.zeros(m.nface, bool)
-        sel[::4] = True
-    pn = bs._build_block_plan_native(
-        m.faces, m.normals, ndev, inv_scale, 128, sel, all_blocks, None,
-        dst_lt)
-    os.environ["CFD_NATIVE"] = "0"
-    lib.cache_clear()
-    try:
-        pp = bs.build_block_plan(m.faces, m.normals, ndev, inv_scale, bp=128,
-                                 face_sel=sel, all_blocks=all_blocks,
-                                 dst_lt=dst_lt)
-    finally:
-        os.environ["CFD_NATIVE"] = "1"
-        lib.cache_clear()
-    assert (pn.ep, pn.kslots, pn.nblocks) == (pp.ep, pp.kslots, pp.nblocks)
-    np.testing.assert_array_equal(pn.block_ids, pp.block_ids)
-    np.testing.assert_array_equal(pn.slot_idx, pp.slot_idx)
-    np.testing.assert_array_equal(pn.slot_w, pp.slot_w)
-    np.testing.assert_array_equal(pn.ext_idx, pp.ext_idx)
-    np.testing.assert_array_equal(pn.scale, pp.scale)
-    np.testing.assert_array_equal(pn.ext_cnt, pp.ext_cnt)
-
-
 def test_c_golden_bit_matches_numpy_golden():
     """native/golden.cc nthreads==1 is bit-identical to ops/golden.py — the
-    honest CPU-baseline denominator (BASELINE.md; -ffp-contract=off)."""
-    from cfd_proxy_tpu.native import golden_gg_c
-    from cfd_proxy_tpu.ops.golden import compute_gradients_gg
+    honest CPU-baseline denominator (-ffp-contract=off)."""
+    from cfd_proxy.native import golden_gg_c
+    from cfd_proxy.ops.golden import compute_gradients_gg
 
     m = generate_mesh(9, 8, 7, jitter=0.05, diag_frac=0.25, shuffle=True,
                       seed=3)
@@ -81,10 +37,10 @@ def test_stale_so_missing_symbols_returns_none(tmp_path):
     bind to None so callers fall back to NumPy instead of crashing."""
     import subprocess
 
-    from cfd_proxy_tpu.native import _bind
+    from cfd_proxy.native import _bind
 
     src = tmp_path / "dummy.cc"
-    src.write_text('extern "C" int cfd_plan_sizes() { return 0; }\n')
+    src.write_text('extern "C" int cfd_rcb_assign() { return 0; }\n')
     so = tmp_path / "dummy.so"
     subprocess.run(["g++", "-shared", "-fPIC", str(src), "-o", str(so)],
                    check=True)
@@ -95,7 +51,7 @@ def test_stale_so_wrong_abi_version_returns_none(monkeypatch):
     """A library whose exported signatures changed (same symbol names) is
     only detectable via the cfd_abi_version handshake; _bind must refuse it
     so the loader rebuilds instead of calling a mismatched argument list."""
-    import cfd_proxy_tpu.native as nat
+    import cfd_proxy.native as nat
 
     assert nat._bind(nat._SO) is not None          # current build matches
     monkeypatch.setattr(nat, "_ABI_VERSION", nat._ABI_VERSION + 1)
@@ -105,31 +61,11 @@ def test_stale_so_wrong_abi_version_returns_none(monkeypatch):
 def test_native_ghosts_reject_corrupt_faces():
     """Out-of-range face endpoints must fail cleanly (None), not corrupt the
     CSR heap."""
-    from cfd_proxy_tpu.native import ghost_closure_c
+    from cfd_proxy.native import ghost_closure_c
 
     faces = np.array([[0, 1], [2, 99]], np.int32)   # endpoint 99 >= N
     owner = np.zeros(4, np.int32)
     assert ghost_closure_c(faces, owner, 1, 1) is None
-
-
-def test_native_plan_rejects_corrupt_faces():
-    """cfd_plan_sizes/fill must reject out-of-range endpoints with an error
-    code (CheckError through the wrapper), not scribble past heap buffers —
-    the same convention cfd_ghosts_run follows."""
-    import pytest
-
-    from cfd_proxy_tpu.native import lib
-    from cfd_proxy_tpu.ops import blocksweep as bs
-    from cfd_proxy_tpu.utils.errors import CheckError
-
-    if lib() is None:
-        pytest.skip("native library unavailable")
-    faces = np.array([[0, 1], [2, 10**6]], np.int32)   # endpoint >= ndev
-    normals = np.ones((2, 3), np.float64)
-    inv = np.ones(256)
-    with pytest.raises(CheckError, match="cfd_plan_sizes"):
-        bs._build_block_plan_native(faces, normals, 256, inv, 128,
-                                    None, True, None)
 
 
 def test_native_golden_rejects_corrupt_faces():
@@ -137,7 +73,7 @@ def test_native_golden_rejects_corrupt_faces():
     raise) instead of silently skipping faces and inflating faces/sec."""
     import pytest
 
-    from cfd_proxy_tpu.native import golden_gg_c, lib
+    from cfd_proxy.native import golden_gg_c, lib
 
     if lib() is None:
         pytest.skip("native library unavailable")

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from cfd_proxy_tpu.mesh import netcdf3
+from cfd_proxy.mesh import netcdf3
 
 
 def _sample_ds():
     ds = netcdf3.Dataset()
-    ds.attrs = {"title": "cfd-proxy-tpu test", "npart": 4, "scale": 2.5}
+    ds.attrs = {"title": "cfd-proxy test", "npart": 4, "scale": 2.5}
     ds.add("coords", ("points", "dim3"), np.arange(30, dtype=np.float64).reshape(10, 3))
     ds.add("faces", ("faces", "two"), np.arange(14, dtype=np.int32).reshape(7, 2))
     ds.add("normals", ("faces", "dim3"), np.random.default_rng(0).standard_normal((7, 3)))
@@ -23,7 +23,7 @@ def test_roundtrip(tmp_path):
     netcdf3.write(p, ds)
     rd = netcdf3.read(p)
     assert rd.dims == ds.dims
-    assert rd.attrs["title"] == "cfd-proxy-tpu test"
+    assert rd.attrs["title"] == "cfd-proxy test"
     assert rd.attrs["npart"] == 4
     assert rd.attrs["scale"] == 2.5
     for name, (dims, arr) in ds.variables.items():
@@ -100,7 +100,7 @@ def test_garbage_header_rejected(tmp_path):
 
 
 def test_partition_file_with_wrong_schema_version(tmp_path):
-    from cfd_proxy_tpu.mesh.reader import read_partition
+    from cfd_proxy.mesh.reader import read_partition
 
     p = str(tmp_path / "w.nc")
     ds = _sample_ds()
@@ -115,9 +115,9 @@ def test_partition_written_by_scipy_reads_back(tmp_path):
     (scipy) must read through our reader — the on-disk format is the spec."""
     from scipy.io import netcdf_file
 
-    from cfd_proxy_tpu.mesh.generator import generate_mesh
-    from cfd_proxy_tpu.mesh.partition import partition_mesh
-    from cfd_proxy_tpu.mesh.reader import read_partition, write_partition
+    from cfd_proxy.mesh.generator import generate_mesh
+    from cfd_proxy.mesh.partition import partition_mesh
+    from cfd_proxy.mesh.reader import read_partition, write_partition
 
     mesh = generate_mesh(5, 4, 4, seed=9)
     (part,) = partition_mesh(mesh, 1)
@@ -149,7 +149,7 @@ def test_writer_rejects_silent_data_loss(tmp_path):
     by standard tools) must all fail loudly instead of corrupting."""
     import pytest
 
-    from cfd_proxy_tpu.utils.errors import CheckError
+    from cfd_proxy.utils.errors import CheckError
 
     ds = netcdf3.Dataset()
     ds.add("names", ("n",), np.array(["abc", "defg"]))
@@ -189,10 +189,10 @@ def test_reader_rejects_mismatched_comm_counts(tmp_path):
     rejected at read time (numpy slicing would clamp silently)."""
     import pytest
 
-    from cfd_proxy_tpu.mesh.generator import generate_mesh
-    from cfd_proxy_tpu.mesh.partition import partition_mesh
-    from cfd_proxy_tpu.mesh.reader import read_partition, write_partition
-    from cfd_proxy_tpu.utils.errors import CheckError
+    from cfd_proxy.mesh.generator import generate_mesh
+    from cfd_proxy.mesh.partition import partition_mesh
+    from cfd_proxy.mesh.reader import read_partition, write_partition
+    from cfd_proxy.utils.errors import CheckError
 
     mesh = generate_mesh(5, 4, 4, seed=9)
     parts = partition_mesh(mesh, 2)

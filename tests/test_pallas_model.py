@@ -1,17 +1,17 @@
-"""Distributed Pallas-backend model on the virtual CPU mesh (interpret mode).
+"""Distributed sweep-backend model on the virtual CPU mesh.
 
 Validates the production path end-to-end: RCB relabel → transposed device
-layout → block-sweep kernels → pack/ppermute/contiguous-unpack exchange —
-against the NumPy golden and across schedules (SURVEY.md §4b).
+layout → point-centric slot-table sweeps → pack/ppermute/contiguous-unpack
+exchange — against the NumPy golden and across schedules (SURVEY.md §4b).
 """
 
 import numpy as np
 import pytest
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.mesh.partition import partition_mesh
-from cfd_proxy_tpu.models import GreenGaussPallas
-from cfd_proxy_tpu.ops.golden import compute_gradients_gg, scale_gradients
+from cfd_proxy.mesh.generator import generate_mesh, make_state
+from cfd_proxy.mesh.partition import partition_mesh
+from cfd_proxy.models import GreenGaussSweep
+from cfd_proxy.ops.golden import compute_gradients_gg, scale_gradients
 
 NVAR = 5
 
@@ -31,49 +31,57 @@ def gref(mesh, gvar):
     g = compute_gradients_gg(gvar.astype(np.float64), mesh.faces, mesh.normals)
     return scale_gradients(g, mesh.volume, mesh.npoint).reshape(mesh.npoint, -1)
 
+@pytest.fixture(scope="module")
+def fref(mesh, gvar):
+    from cfd_proxy.ops.flux import compute_psd_flux, flux_residual_scale
 
-def test_auto_block_size(mesh, capsys):
-    """bp=None = AUTO: BP_SMALL below the BP_AUTO_SMALL shard-point
-    threshold (paired small-shard scan, BASELINE.md), with no reduced-bp
-    notice (nothing was requested); explicit bp keeps the notice path."""
-    from cfd_proxy_tpu.models.gradients_pallas import BP_AUTO_SMALL, BP_SMALL
-
-    assert BP_SMALL == 1024 and BP_AUTO_SMALL == 262144
-    parts = partition_mesh(mesh, 1, ghost_layers=1)
-    m_auto = GreenGaussPallas(parts, NVAR, interpret=True)
-    assert m_auto.bp_auto and m_auto.bp_requested == BP_SMALL
-    assert m_auto.bp <= BP_SMALL  # shard-size cap may reduce further
-    assert "reduced" not in capsys.readouterr().err
-    m_exp = GreenGaussPallas(parts, NVAR, bp=4096, interpret=True)
-    assert not m_exp.bp_auto and m_exp.bp_requested == 4096
-    assert "requested bp 4096 reduced" in capsys.readouterr().err
+    return flux_residual_scale(
+        compute_psd_flux(gvar.astype(np.float64), mesh.faces, mesh.normals),
+        mesh.volume, mesh.npoint)
 
 
-@pytest.mark.parametrize("kernel", ["packed", "gather"])
-@pytest.mark.parametrize("npart,ghost_layers", [(1, 1), (4, 1), (4, 2), (8, 1)])
-def test_pallas_schedules_match_golden(mesh, gvar, gref, npart, ghost_layers,
-                                       kernel):
-    parts = partition_mesh(mesh, npart, ghost_layers=ghost_layers)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True, kernel=kernel)
-    state = model.distribute_state(gvar)
-    outs = {}
-    for s in ("bulk", "early", "overlap", "nocomm"):
-        outs[s] = np.asarray(model.step(state, s))
-    denom = max(1.0, np.abs(gref).max())
-    for s in ("bulk", "early", "overlap"):
-        got = model.gather_global(outs[s])
-        err = np.abs(got - gref).max() / denom
-        assert err < 1e-5, f"{s}: rel err {err}"
-    # schedules agree to within compiler FMA-contraction noise: summation
-    # order and scale distribution are IDENTICAL by construction (boundary-
-    # first bulk slot order, seeded accumulation, pack-time scaling), but
-    # separately-compiled kernels may contract multiply-adds differently
-    # (XLA runs with allow_excess_precision) → up to a few ULPs
+_MODELS: dict = {}
+
+
+def _stepped(mesh, gvar, npart, ghost_layers, op):
+    """One model + its per-schedule results per (npart, ghost_layers, op),
+    shared by the schedule cases."""
+    key = (npart, ghost_layers, op)
+    if key not in _MODELS:
+        parts = partition_mesh(mesh, npart, ghost_layers=ghost_layers)
+        model = GreenGaussSweep(parts, NVAR, op=op)
+        state = model.distribute_state(gvar)
+        _MODELS[key] = (model, {s: np.asarray(model.step(state, s))
+                                for s in ("bulk", "early", "overlap",
+                                          "nocomm")})
+    return _MODELS[key]
+
+
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("schedule", ["bulk", "early", "overlap"])
+@pytest.mark.parametrize("ghost_layers", [1, 2])
+@pytest.mark.parametrize("npart", [1, 2, 4, 8])
+def test_pallas_schedules_match_golden(mesh, gvar, gref, fref, npart,
+                                       ghost_layers, schedule, op):
+    """Every schedule vs the f64 golden (gg: compute_gradients_gg, flux:
+    compute_psd_flux), and vs bulk: summation order and scale distribution
+    are IDENTICAL by construction (boundary-first bulk slot order, seeded
+    accumulation, pack-time scaling); separately compiled graphs may still
+    contract multiply-adds differently → a few ULPs."""
+    model, outs = _stepped(mesh, gvar, npart, ghost_layers, op)
+    ref = gref if op == "gg" else fref
+    denom = max(1.0, np.abs(ref).max())
+    got = model.gather_global(outs[schedule])
+    err = np.abs(got - ref).max() / denom
+    assert err < 1e-5, f"{schedule}: rel err {err}"
     scale_ref = max(1.0, np.abs(outs["bulk"]).max())
-    assert np.abs(outs["early"] - outs["bulk"]).max() / scale_ref < 1e-6
-    assert np.abs(outs["overlap"] - outs["early"]).max() / scale_ref < 1e-6
-    # ghost regions: filled by exchange in bulk, zero-scaled before
-    assert np.isfinite(outs["bulk"]).all()
+    assert np.abs(outs[schedule] - outs["bulk"]).max() / scale_ref < 1e-6
+    # nocomm = the bulk sweep without the exchange: owned columns agree
+    for i, p in enumerate(model.parts):
+        np.testing.assert_array_equal(outs["nocomm"][i, :, : p.nowned],
+                                      outs["bulk"][i, :, : p.nowned])
+    assert np.isfinite(outs[schedule]).all()
+
 
 
 def test_bf16_halo_dtype_bounded(mesh, gvar):
@@ -81,8 +89,8 @@ def test_bf16_halo_dtype_bounded(mesh, gvar):
     owned rows stay bit-identical to the f32-halo model; ghost rows carry
     the bf16 wire rounding, bounded ~4e-3 relative vs their owners."""
     parts = partition_mesh(mesh, 4, ghost_layers=1)
-    m32 = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
-    mbf = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
+    m32 = GreenGaussSweep(parts, NVAR)
+    mbf = GreenGaussSweep(parts, NVAR,
                            halo_dtype="bfloat16")
     s32 = m32.distribute_state(gvar)
     sbf = mbf.distribute_state(gvar)
@@ -101,65 +109,12 @@ def test_bf16_halo_dtype_bounded(mesh, gvar):
         assert err > 0 or mbf.layout.nphases == 0  # the cast really happened
 
 
-def test_kcompact_matches_uncompacted(mesh, gvar):
-    """--kcompact changes only the slot-table LAYOUT (in-block degree sort +
-    prefix compaction of exactly-zero padding slots) — per-point sums add the
-    same terms in the same order, so every schedule's gathered result equals
-    the uncompacted model's."""
-    parts = partition_mesh(mesh, 4, ghost_layers=1)
-    m_off = GreenGaussPallas(parts, NVAR, bp=256, interpret=True,
-                             kcompact=False)
-    m_on = GreenGaussPallas(parts, NVAR, bp=256, interpret=True,
-                            kcompact=True)
-    assert m_on.kcompact and not m_off.kcompact
-    # the degree sort must genuinely compact at least one class on this mesh
-    assert any(sum(w) < m_on._dims[c][1] * m_on.bp
-               for c, w in m_on._wks.items())
-    s_off = m_off.distribute_state(gvar)
-    s_on = m_on.distribute_state(gvar)
-    for s in ("bulk", "early", "overlap", "nocomm"):
-        g_off = m_off.gather_global(np.asarray(m_off.step(s_off, s)))
-        g_on = m_on.gather_global(np.asarray(m_on.step(s_on, s)))
-        np.testing.assert_array_equal(g_on, g_off, err_msg=s)
-
-
-def test_kcompact_gather_matches_uncompacted(mesh, gvar):
-    """For the gather kernel --kcompact only skips provably-inert
-    (tile, slot) gather pairs — results equal the uncompacted model's."""
-    parts = partition_mesh(mesh, 4, ghost_layers=1)
-    m_off = GreenGaussPallas(parts, NVAR, bp=256, interpret=True,
-                             kernel="gather", kcompact=False)
-    m_on = GreenGaussPallas(parts, NVAR, bp=256, interpret=True,
-                            kernel="gather", kcompact=True)
-    s_off = m_off.distribute_state(gvar)
-    s_on = m_on.distribute_state(gvar)
-    for s in ("bulk", "overlap"):
-        g_off = m_off.gather_global(np.asarray(m_off.step(s_off, s)))
-        g_on = m_on.gather_global(np.asarray(m_on.step(s_on, s)))
-        np.testing.assert_array_equal(g_on, g_off, err_msg=s)
-
-
-def test_force_rdma_self_send_p1(mesh, gvar):
-    """P=1 fused-RDMA overlap (self-send phase) == the degraded early graph
-    bitwise on owned columns — the mode used for the single-chip hardware
-    smoke of the GASPI-analogue mechanism."""
-    parts = partition_mesh(mesh, 1)
-    forced = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                              force_rdma=True)
-    plain = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
-    assert forced._has_comm and not plain._has_comm
-    ga = np.asarray(forced.step(forced.distribute_state(gvar), "overlap"))
-    gb = np.asarray(plain.step(plain.distribute_state(gvar), "overlap"))
-    n = forced.layout.owned_pad
-    np.testing.assert_array_equal(ga[:, :, :n], gb[:, :, :n])
-
-
 def test_bf16_meta_dtype_bounded(mesh, gvar, gref):
     """--meta-dtype bfloat16 halves the slot-weight stream; the ±normal
     weights lose ~8 mantissa bits → documented ~1e-3 relative bound vs
-    golden (measured ~3e-5 on the test mesh)."""
+    golden."""
     parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
+    model = GreenGaussSweep(parts, NVAR,
                              meta_dtype="bfloat16")
     state = model.distribute_state(gvar)
     got = model.gather_global(np.asarray(model.step(state, "bulk")))
@@ -168,53 +123,14 @@ def test_bf16_meta_dtype_bounded(mesh, gvar, gref):
     assert 1e-7 < err < 1e-3, err   # must differ from f32 yet stay bounded
 
 
-def test_bf16_src_dtype_bounded(mesh, gvar, gref):
-    """--src-dtype bfloat16 (delta-packed sources): the dominant srcs stream
-    halves (~17% measured speedup, BASELINE.md).  Deltas src−own keep the
-    error proportional to the neighbor delta — the actual Green-Gauss
-    signal — so the relative bound stays ~1e-3."""
-    parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                             src_dtype="bfloat16")
-    state = model.distribute_state(gvar)
-    outs = {s: np.asarray(model.step(state, s))
-            for s in ("bulk", "early", "overlap")}
-    got = model.gather_global(outs["bulk"])
-    denom = max(1.0, np.abs(gref).max())
-    err = np.abs(got - gref).max() / denom
-    # measured 3.1e-3 on this mesh: each delta carries bf16's ~4e-3 unit
-    # roundoff and the max-norm keeps the worst point
-    assert 1e-7 < err < 5e-3, err   # must differ from f32 yet stay bounded
-    # schedule equivalence holds in bf16d too: every class packs deltas from
-    # the same var_T (identical rounding), accumulation order unchanged
-    scale = max(1.0, np.abs(outs["bulk"]).max())
-    assert np.abs(outs["early"] - outs["bulk"]).max() / scale < 1e-6
-    assert np.abs(outs["overlap"] - outs["early"]).max() / scale < 1e-6
-
-
-def test_bf16_src_dtype_flux(mesh, gvar):
-    """The flux kernel reconstructs gat = own + delta; bounded vs the f32
-    flux model."""
-    parts = partition_mesh(mesh, 2)
-    outs = {}
-    for sd in ("float32", "bfloat16"):
-        m = GreenGaussPallas(parts, NVAR, bp=128, interpret=True, op="flux",
-                             src_dtype=sd)
-        outs[sd] = np.asarray(m.step(m.distribute_state(gvar), "bulk"))
-    scale = max(1.0, np.abs(outs["float32"]).max())
-    err = np.abs(outs["bfloat16"] - outs["float32"]).max() / scale
-    assert 0 < err < 5e-3, err
-
-
 def test_bf16_grad_dtype_flux(mesh, gvar):
     """--grad-dtype bfloat16 on the flux op: the (NV, npts) flux planes
-    store bf16 through the same out_ref cast path as gg; bounded vs the
-    f32 flux model across all schedules."""
+    store bf16 through the same store cast as gg; bounded vs the f32 flux
+    model across all schedules."""
     parts = partition_mesh(mesh, 2)
     outs = {}
     for gd in ("float32", "bfloat16"):
-        m = GreenGaussPallas(parts, NVAR, bp=128, interpret=True, op="flux",
-                             grad_dtype=gd)
+        m = GreenGaussSweep(parts, NVAR, op="flux", grad_dtype=gd)
         st = m.distribute_state(gvar)
         outs[gd] = {s: np.asarray(m.step(st, s), dtype=np.float32)
                     for s in ("bulk", "early", "overlap")}
@@ -225,12 +141,11 @@ def test_bf16_grad_dtype_flux(mesh, gvar):
 
 
 def test_reduced_precision_combined(mesh, gvar, gref):
-    """--src-dtype bfloat16 --meta-dtype bfloat16 together (the bench.py
-    reduced_precision row, ~1.29x the f32 kernel on hardware): still bounded
-    vs golden."""
+    """--meta-dtype bfloat16 --grad-dtype bfloat16 together (the bench.py
+    reduced_precision row): still bounded vs golden."""
     parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                             src_dtype="bfloat16", meta_dtype="bfloat16")
+    model = GreenGaussSweep(parts, NVAR, meta_dtype="bfloat16",
+                            grad_dtype="bfloat16")
     state = model.distribute_state(gvar)
     got = model.gather_global(np.asarray(model.step(state, "bulk")))
     denom = max(1.0, np.abs(gref).max())
@@ -239,15 +154,12 @@ def test_reduced_precision_combined(mesh, gvar, gref):
 
 
 def test_bf16_grad_dtype_bounded(mesh, gvar, gref):
-    """--grad-dtype bfloat16 stores the gradient planes in bf16 (the largest
-    remaining f32 stream; measured ~5.6% paired win on the reduced-precision
-    kernel, BASELINE.md).  Accumulation stays f32 in-kernel; only stores
-    round.  Bounded ~5e-3 vs golden; schedules agree to the same bf16 bound
-    (bulk rounds once at its store, early/overlap also round the boundary
+    """--grad-dtype bfloat16 stores the gradient planes in bf16.
+    Accumulation stays f32; only stores round.  Bounded ~5e-3 vs golden;
+    schedules agree to the same bf16 bound (bulk rounds once at its store, early/overlap also round the boundary
     partial) instead of the f32 modes' 1e-6."""
     parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                             grad_dtype="bfloat16")
+    model = GreenGaussSweep(parts, NVAR, grad_dtype="bfloat16")
     import jax.numpy as jnp
 
     assert model._grad_jnp == jnp.bfloat16  # dtype plumbing took effect
@@ -265,13 +177,12 @@ def test_bf16_grad_dtype_bounded(mesh, gvar, gref):
 
 
 def test_bf16_grad_dtype_full_stack(mesh, gvar, gref):
-    """The full bf16 throughput stack — sources, weights, grads, halo all
-    bf16 — stays bounded vs golden (every rounding is one bf16 unit on a
-    different stream; they do not compound multiplicatively)."""
+    """The full bf16 stack — weights, grads, halo all bf16 — stays bounded
+    vs golden (every rounding is one bf16 unit on a different stream; they
+    do not compound multiplicatively)."""
     parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                             src_dtype="bfloat16", meta_dtype="bfloat16",
-                             grad_dtype="bfloat16", halo_dtype="bfloat16")
+    model = GreenGaussSweep(parts, NVAR, meta_dtype="bfloat16",
+                            grad_dtype="bfloat16", halo_dtype="bfloat16")
     state = model.distribute_state(gvar)
     denom = max(1.0, np.abs(gref).max())
     for s in ("bulk", "early", "overlap"):
@@ -280,33 +191,9 @@ def test_bf16_grad_dtype_full_stack(mesh, gvar, gref):
         assert 1e-5 < err < 2e-2, f"{s}: {err}"
 
 
-def test_bf16_src_requires_packed(mesh):
-    with pytest.raises(Exception, match="packed"):
-        GreenGaussPallas(partition_mesh(mesh, 1), NVAR, bp=128, interpret=True,
-                         kernel="gather", src_dtype="bfloat16")
-
-
-def test_packed_matches_gather_kernel(mesh, gvar):
-    """The two sweep formulations (pre-gathered sources vs in-kernel gathers)
-    agree to FMA-contraction noise — the cross-check of kernel strategies
-    (SURVEY.md §7 Stage 2 design space)."""
-    parts = partition_mesh(mesh, 4)
-    outs = {}
-    for kern in ("packed", "gather"):
-        # kcompact=False pins BOTH formulations to the same (non-degree-
-        # sorted) point layout so the raw device arrays are positionally
-        # comparable; compact-vs-uncompacted equivalence has its own test
-        model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                                 kernel=kern, kcompact=False)
-        state = model.distribute_state(gvar)
-        outs[kern] = np.asarray(model.step(state, "bulk"))
-    scale = max(1.0, np.abs(outs["packed"]).max())
-    assert np.abs(outs["packed"] - outs["gather"]).max() / scale < 1e-6
-
-
 def test_pallas_ghosts_match_owner(mesh, gvar):
     parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
+    model = GreenGaussSweep(parts, NVAR)
     state = model.distribute_state(gvar)
     g = np.asarray(model.step(state, "early"))
     lay = model.layout
@@ -328,47 +215,37 @@ def test_pallas_ghosts_match_owner(mesh, gvar):
 
 def test_iterate_fn_runs(mesh, gvar):
     parts = partition_mesh(mesh, 2)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
+    model = GreenGaussSweep(parts, NVAR)
     state = model.distribute_state(gvar)
     out = model.iterate_fn("early", 3)(*model.iter_args(state))
     assert out.shape == state["var_T"].shape
     assert np.isfinite(np.asarray(out)).all()
 
 
-@pytest.mark.parametrize("kernel,schedule", [
-    ("packed", "bulk"),
-    ("gather", "bulk"),    # the production solver-mode config (BASELINE.md)
-    ("packed", "overlap"),  # boundary+interior table classes rebuilt
-])
-def test_solver_iterate_matches_manual_composition(mesh, gvar, kernel,
-                                                   schedule):
-    """The fused solver-mode runner (sweep → toy update → var exchange →
-    table rebuild in ONE jit) equals the same chain composed through the
-    public step/refresh_state API, bitwise on var_T — for both kernel
-    formulations (the per-step rebuild differs: packed re-packs slot
-    sources, gather only the ext columns) and both table-class sets."""
-    import jax.numpy as jnp
-
+@pytest.mark.parametrize("op", ["gg", "flux"])
+@pytest.mark.parametrize("schedule", ["bulk", "early", "overlap"])
+def test_solver_iterate_matches_manual_composition(mesh, gvar, schedule, op):
+    """The fused solver-mode runner (sweep → toy update → var exchange in
+    ONE jit) equals the same chain composed through the public
+    step/refresh_state API, bitwise on var_T."""
     parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                             kernel=kernel)
+    model = GreenGaussSweep(parts, NVAR, op=op)
     state = model.distribute_state(gvar)
     got = np.asarray(model.iterate_fn(schedule, 1, solver_mode=True)(
         *model.iter_args(state)))
     g = model.step(state, schedule)
-    v2 = state["var_T"] + 1e-30 * g[:, : g.shape[1] // 3, :][:, :8, :]
+    v2 = state["var_T"] + 1e-30 * g[:, :8, :]
     want = np.asarray(model.refresh_state(v2)["var_T"])
     np.testing.assert_array_equal(got, want)
 
 
 def test_solver_iterate_sweeps_matches_manual(mesh, gvar):
-    """sweeps_per_step=2 (the multi-stage amortization axis): one rebuild,
-    then two sweep+update stages against the SAME tables (stale by the toy
-    update — exactly what a stage-loop solver accepts), then one var
-    exchange.  Must equal the manual composition bitwise on var_T."""
+    """sweeps_per_step=2 (a multi-stage solver step): two sweep+update
+    stages whose ghost state goes stale by the toy update — exactly what a
+    stage-loop solver accepts — then one var exchange.  Must equal the
+    manual composition bitwise on var_T."""
     parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                             kernel="gather")
+    model = GreenGaussSweep(parts, NVAR)
     state = model.distribute_state(gvar)
     got = np.asarray(model.iterate_fn(
         "bulk", 1, solver_mode=True, sweeps_per_step=2)(
@@ -376,26 +253,25 @@ def test_solver_iterate_sweeps_matches_manual(mesh, gvar):
     v = state["var_T"]
     for _ in range(2):
         g = model.step({**state, "var_T": v}, "bulk")
-        v = v + 1e-30 * g[:, : g.shape[1] // 3, :][:, :8, :]
+        v = v + 1e-30 * g[:, :8, :]
     want = np.asarray(model.refresh_state(v)["var_T"])
     np.testing.assert_array_equal(got, want)
 
 
 def test_sweeps_per_step_requires_solver_mode(mesh, gvar):
-    from cfd_proxy_tpu.utils.errors import CheckError
+    from cfd_proxy.utils.errors import CheckError
 
     parts = partition_mesh(mesh, 2)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
+    model = GreenGaussSweep(parts, NVAR)
     with pytest.raises(CheckError):
         model.iterate_fn("bulk", 1, sweeps_per_step=2)
 
 
 def test_solver_mode_flux_runs(mesh, gvar):
     """Solver mode is model-agnostic: the flux op's per-step dataflow
-    (sweep + update + var exchange + table rebuild) runs fused and stays
-    finite."""
+    (sweep + update + var exchange) runs fused and stays finite."""
     parts = partition_mesh(mesh, 2)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True, op="flux")
+    model = GreenGaussSweep(parts, NVAR, op="flux")
     state = model.distribute_state(gvar)
     out = model.iterate_fn("bulk", 2, solver_mode=True)(
         *model.iter_args(state))
@@ -404,13 +280,14 @@ def test_solver_mode_flux_runs(mesh, gvar):
 
 
 def test_refresh_state_solver_mode(mesh, gvar):
-    """Device-side state update → var ghost exchange → exts rebuilt."""
+    """Device-side state update → var ghost exchange → the next sweep reads
+    the refreshed ghosts."""
     import jax.numpy as jnp
 
-    from cfd_proxy_tpu.ops.golden import compute_gradients_gg, scale_gradients
+    from cfd_proxy.ops.golden import compute_gradients_gg, scale_gradients
 
     parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128)
+    model = GreenGaussSweep(parts, NVAR)
     state = model.distribute_state(gvar)
     # perturb OWNED columns on device (ghosts left stale), then refresh
     var2 = state["var_T"] * jnp.float32(1.5)
@@ -429,98 +306,12 @@ def test_refresh_state_solver_mode(mesh, gvar):
     assert err < 1e-5, err
 
 
-def test_pallas_slice_aware_matches(mesh, gvar, gref):
-    """slice_size on the Pallas model: ICI-before-DCN phase ordering must not
-    change results (each ghost filled by exactly one phase)."""
-    parts = partition_mesh(mesh, 8)
-    outs = {}
-    for ss in (None, 4):
-        model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                                 slice_size=ss)
-        state = model.distribute_state(gvar)
-        outs[ss] = model.gather_global(np.asarray(model.step(state, "overlap")))
-    denom = max(1.0, np.abs(gref).max())
-    assert np.abs(outs[4] - gref).max() / denom < 1e-5
-    # phase REORDERING may regroup ghost regions; owned results must agree
-    # to kernel-compilation noise
-    assert np.abs(outs[4] - outs[None]).max() / denom < 1e-6
-
-
-def test_distribute_state_schedule_subset(mesh, gvar, gref):
-    """distribute_state(schedules=[...]) builds only the table classes those
-    schedules read (the packed srcs tables dominate HBM); stepping an
-    unbuilt schedule raises instead of silently reading a stub."""
-    from cfd_proxy_tpu.utils.errors import CheckError
-
-    parts = partition_mesh(mesh, 4)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
-    state = model.distribute_state(gvar, schedules=["bulk"])
-    assert state["_classes"] == ("bulk",)
-    got = model.gather_global(np.asarray(model.step(state, "bulk")))
-    denom = max(1.0, np.abs(gref).max())
-    assert np.abs(got - gref).max() / denom < 1e-5
-    with pytest.raises(CheckError, match="table classes"):
-        model.step(state, "overlap")
-    # the ITERATE path (what every timing harness drives) must raise the
-    # same friendly error, not a Pallas BlockSpec shape error deep in the
-    # trace (review find: the guard existed only on step())
-    with pytest.raises(CheckError, match="table class"):
-        model.iterate_fn("early", 2)(*model.iter_args(state))
-    # and the subset state must be byte-identical to the full build's table
-    full = model.distribute_state(gvar)
-    np.testing.assert_array_equal(np.asarray(state["tbl_bulk"]),
-                                  np.asarray(full["tbl_bulk"]))
-
-
-def test_overlap_routes_dcn_phases_off_rdma(mesh, gvar, gref):
-    """With a multi-slice topology the fused RDMA kernel must carry ONLY the
-    intra-slice (ICI) phases — make_async_remote_copy is an ICI mechanism and
-    a DCN target is not reachable by it.  DCN phases ride ppermute instead;
-    results must still match golden and the single-slice run."""
-    parts = partition_mesh(mesh, 8)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                             slice_size=4)
-    assert model._dcn_phases, "fixture must actually produce DCN phases"
-    assert model._ici_phases, "and ICI phases"
-    assert set(model._ici_phases) | set(model._dcn_phases) == set(
-        range(model.layout.nphases))
-    state = model.distribute_state(gvar)
-    got = model.gather_global(np.asarray(model.step(state, "overlap")))
-    denom = max(1.0, np.abs(gref).max())
-    assert np.abs(got - gref).max() / denom < 1e-5
-    # slice_size=1 makes EVERY real phase inter-slice: overlap must degrade
-    # to the ppermute graph (no ICI phases → nothing for the fused kernel)
-    m1 = GreenGaussPallas(parts, NVAR, bp=128, interpret=True, slice_size=1)
-    real_phases = [k for k, p in enumerate(m1.layout.perms) if p]
-    assert all(k in m1._dcn_phases for k in real_phases)
-    got1 = m1.gather_global(np.asarray(m1.step(m1.distribute_state(gvar),
-                                               "overlap")))
-    assert np.abs(got1 - gref).max() / denom < 1e-5
-
-
-def test_min_phases_multi_self_send(mesh, gvar):
-    """min_phases pads the schedule with full self-permutations; the fused
-    RDMA overlap with 3 phases must equal the single-phase result bitwise on
-    owned columns (exercises the multi-phase semaphore arrays)."""
-    parts = partition_mesh(mesh, 1)
-    multi = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                             force_rdma=True, min_phases=3)
-    plain = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
-    assert multi.layout.nphases == 3
-    ga = np.asarray(multi.step(multi.distribute_state(gvar), "overlap"))
-    gb = np.asarray(plain.step(plain.distribute_state(gvar), "overlap"))
-    n = multi.layout.owned_pad
-    np.testing.assert_array_equal(ga[:, :, :n], gb[:, :, :n])
-
-
 def test_pack_mode_dispatch_matches_gather(mesh, gvar):
-    """The host-decided per-phase pack lowering (zero/slice/gather — the
-    fix for XLA's ~63 us/iter axis-1 take on Pallas outputs: a transposed
-    full copy of the gradient array plus a serial element gather) is
+    """The host-decided per-phase pack lowering (zero/slice/segs/gather) is
     value-identical to the uniform take: forcing every phase to "gather"
     must reproduce the dispatched step bitwise, for every schedule."""
     parts = partition_mesh(mesh, 4, ghost_layers=1)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
+    model = GreenGaussSweep(parts, NVAR)
     # real comm phases classify "segs" (the tlayout segmented lanes from the
     # comm-first grouped relabel); forcing "gather" below exercises the
     # equivalence of both lowerings
@@ -528,105 +319,27 @@ def test_pack_mode_dispatch_matches_gather(mesh, gvar):
     state = model.distribute_state(gvar)
     ref = {s: np.asarray(model.step(state, s)) for s in ("bulk", "early",
                                                          "overlap")}
-    forced = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
+    forced = GreenGaussSweep(parts, NVAR)
     forced._pack_modes = tuple("gather" for _ in forced._pack_modes)
     fstate = forced.distribute_state(gvar)
     for s, r in ref.items():
         np.testing.assert_array_equal(np.asarray(forced.step(fstate, s)), r)
 
 
-def test_pack_mode_zero_for_forced_self_send(mesh, gvar):
-    """tlayout's padded self-send phases carry masked zeros; the dispatcher
-    must classify them "zero" (the P=1 force_rdma hardware-smoke config then
-    packs a constant — the measured-fast production graph)."""
-    parts = partition_mesh(mesh, 1)
-    forced = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                              force_rdma=True)
-    assert all(m == "zero" for m in forced._pack_modes)
-
-
-def test_fake_sends_semantics_inert(mesh, gvar):
-    """--fake-sends gives padded self-send phases REAL shuffled-owned
-    payloads (the P>1-shaped pack/exchange fixed-cost measurement knob);
-    the payload lands in reserved ghost regions no face references, so
-    owned results must be bitwise those of the plain model, and the phases
-    must classify as "segs" (contiguous-run segments in the front region —
-    the production P>1 pack path whose cost the knob measures)."""
-    parts = partition_mesh(mesh, 1)
-    plain = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
-    fake = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                            force_rdma=True, min_phases=4, fake_sends=256)
-    assert fake._pack_modes == ("segs",) * 4
-    assert all(off is not None for off in fake.layout.seg_offs)
-    assert fake.layout.s_max == 256
-    n = parts[0].nowned
-    fs = fake.distribute_state(gvar)
-    ps = plain.distribute_state(gvar)
-    for s in ("bulk", "early", "overlap"):
-        np.testing.assert_array_equal(
-            np.asarray(fake.step(fs, s))[:, :, :n],
-            np.asarray(plain.step(ps, s))[:, :, :n])
-
-
-def test_fake_tail_mixed_layout_inert(mesh, gvar):
-    """fake_tail_frac carves the trailing fake lanes into a strided GATHER
-    tail (the real ~85/15 slices+tail mix — VERDICT r4 weak #3): phases
-    still classify "segs", tail_offs is set, and owned results stay bitwise
-    those of the plain model on every schedule."""
-    parts = partition_mesh(mesh, 1)
-    plain = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
-    fake = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                            force_rdma=True, min_phases=4, fake_sends=256,
-                            fake_tail_frac=0.15)
-    assert fake._pack_modes == ("segs",) * 4
-    n_tail = round(256 * 0.15)
-    for k in range(4):
-        assert fake.layout.tail_offs[k] == (256 - n_tail, n_tail)
-        # the tail lanes are NOT a contiguous run (stride 2) — they must
-        # actually exercise the gather path
-        tl = fake.layout.send_idx[0, k, 256 - n_tail:256]
-        assert not (np.diff(tl) == 1).all()
-    n = parts[0].nowned
-    fs = fake.distribute_state(gvar)
-    ps = plain.distribute_state(gvar)
-    for s in ("bulk", "early", "overlap"):
-        np.testing.assert_array_equal(
-            np.asarray(fake.step(fs, s))[:, :, :n],
-            np.asarray(plain.step(ps, s))[:, :, :n])
-
-
-def test_pack_force_gather(mesh, gvar):
-    """pack_force="gather" (the segs-vs-gather A/B knob) downgrades every
-    slice/segs phase to the windowed gather, keeps "zero" phases, and is
-    value-identical on every schedule."""
-    parts = partition_mesh(mesh, 4, ghost_layers=1)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
-    assert "segs" in model._pack_modes
-    forced = GreenGaussPallas(parts, NVAR, bp=128, interpret=True,
-                              pack_force="gather")
-    assert all(m in ("zero", "gather") for m in forced._pack_modes)
-    state = model.distribute_state(gvar)
-    fstate = forced.distribute_state(gvar)
-    for s in ("bulk", "early", "overlap"):
-        np.testing.assert_array_equal(np.asarray(forced.step(fstate, s)),
-                                      np.asarray(model.step(state, s)))
-
-
 def test_segmented_pack_layout(mesh, gvar):
-    """The tlayout segmented lanes under the round-5 INTERVAL layout: the
+    """The tlayout segmented lanes under the INTERVAL layout: the
     model's canonical phase-signature relabel lays each shard's comm region
     group-after-group in the order tlayout enumerates signatures, so every
     phase's lanes are interval slices at STATIC offsets shared by all
     shards (descending length, at most SEG_MAX_PER_PHASE) — and at model-
     built P=4/P=8 topologies the intervals absorb ALL groups: NO gather
-    tail remains (the tail costs ~0.85+0.55n µs of fixed materialization —
-    BASELINE.md round 5).  Each shard's active lanes within a slice are one
+    tail remains.  Each shard's active lanes within a slice are one
     contiguous ascending column run (what the segs pack mode's
     dynamic slices rely on)."""
-    from cfd_proxy_tpu.parallel.tlayout import SEG_MAX_PER_PHASE
+    from cfd_proxy.parallel.tlayout import SEG_MAX_PER_PHASE
 
     parts = partition_mesh(mesh, 4, ghost_layers=1)
-    model = GreenGaussPallas(parts, NVAR, bp=128, interpret=True)
+    model = GreenGaussSweep(parts, NVAR)
     lay = model.layout
     sidx = np.asarray(lay.send_idx)
     mask = np.asarray(lay.send_mask)
@@ -655,27 +368,27 @@ def test_segmented_pack_layout(mesh, gvar):
 def test_segmented_width_gating(mesh):
     """seg_slack caps the segmented layout's lane inflation: tail pads ride
     the wire (every ppermute buffer is (rows, s_max)) and widen every ghost
-    region — measured 6x at 64-way small shards.  A slack of 0 must force
+    region.  A slack of 0 must force
     every phase back to the legacy prefix-packed lanes at the legacy width;
     the default keeps segments only within budget."""
-    from cfd_proxy_tpu.mesh.partition import relabel_owned, rcb_owned_order
-    from cfd_proxy_tpu.parallel.tlayout import LANE, build_tlayout
-    from cfd_proxy_tpu.parallel.topology import build_halo_topology
+    from cfd_proxy.mesh.partition import relabel_owned, rcb_owned_order
+    from cfd_proxy.parallel.tlayout import LANE, build_tlayout
+    from cfd_proxy.parallel.topology import build_halo_topology
 
     parts = partition_mesh(mesh, 4, ghost_layers=1)
-    parts = [relabel_owned(p, rcb_owned_order(p, block=128, degree_sort=True))
+    parts = [relabel_owned(p, rcb_owned_order(p, block=128))
              for p in parts]
     topo = build_halo_topology(parts, max(p.npoint for p in parts) + 1)
     w_legacy = -(-max(topo.max_phase_size(), 1) // LANE) * LANE
-    tight = build_tlayout(parts, topo, bp=128, seg_slack=0.0)
+    tight = build_tlayout(parts, topo, seg_slack=0.0)
     # budget floors at LANE (a <=128-lane segmented phase cannot inflate
     # past the 128-rounded legacy width): wider phases must all fall back
     for off in tight.seg_offs[:topo.nphases]:
         assert off is None or sum(L for _o, L in off) <= 128
     assert tight.s_max == w_legacy
-    wide = build_tlayout(parts, topo, bp=128, seg_slack=1e9)
+    wide = build_tlayout(parts, topo, seg_slack=1e9)
     assert all(off is not None for off in wide.seg_offs[:topo.nphases])
-    dflt = build_tlayout(parts, topo, bp=128)
+    dflt = build_tlayout(parts, topo)
     for k in range(topo.nphases):
         if dflt.seg_offs[k] is not None:
             assert sum(L for _o, L in dflt.seg_offs[k]) <= dflt.s_max

@@ -9,15 +9,15 @@ sweep.
 import numpy as np
 import pytest
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.mesh.partition import (
+from cfd_proxy.mesh.generator import generate_mesh, make_state
+from cfd_proxy.mesh.partition import (
     exchange_host,
     partition_mesh,
     rcb_assign,
     send_point_set,
 )
-from cfd_proxy_tpu.mesh.reader import partition_path, read_partition, write_partition
-from cfd_proxy_tpu.ops.golden import compute_gradients_gg
+from cfd_proxy.mesh.reader import partition_path, read_partition, write_partition
+from cfd_proxy.ops.golden import compute_gradients_gg
 
 NVAR = 4
 
@@ -34,29 +34,22 @@ def test_rcb_balance(mesh):
         assert counts.max() - counts.min() <= 1
 
 
-def test_rcb_degree_sort_order(mesh):
-    """degree_sort=True permutes only WITHIN each block-sized chunk of the
-    RCB order (same block membership → identical ext lists) and orders each
-    chunk by incidence count descending."""
-    from cfd_proxy_tpu.mesh.partition import rcb_owned_order
+def test_rcb_owned_order_blocks(mesh):
+    """Without comm (P=1) the locality relabel lays the RCB chunks out one
+    after another: every positional run of chunk points shares one RCB
+    label, and the order is a permutation."""
+    from cfd_proxy.mesh.partition import rcb_assign, rcb_owned_order
 
     (part,) = partition_mesh(mesh, 1)
     block = 128
-    base = rcb_owned_order(part, block=block)
-    srt = rcb_owned_order(part, block=block, degree_sort=True)
-    assert sorted(srt) == list(range(part.nowned))
-    # same membership per positional block
-    deg = np.bincount(part.faces.ravel(), minlength=part.npoint)
-    old_base = np.empty(part.nowned, np.int64)
-    old_base[base] = np.arange(part.nowned)    # position -> old id
-    old_srt = np.empty(part.nowned, np.int64)
-    old_srt[srt] = np.arange(part.nowned)
-    for b0 in range(0, part.nowned, block):
-        chunk_base = old_base[b0 : b0 + block]
-        chunk_srt = old_srt[b0 : b0 + block]
-        assert set(chunk_base) == set(chunk_srt)
-        d = deg[chunk_srt]
-        assert (np.diff(d) <= 0).all()          # degree descending
+    new_of_old = rcb_owned_order(part, block=block)
+    assert sorted(new_of_old) == list(range(part.nowned))
+    label = rcb_assign(part.coords[: part.nowned],
+                       max(1, part.nowned // block))
+    old_of_new = np.empty(part.nowned, np.int64)
+    old_of_new[new_of_old] = np.arange(part.nowned)
+    lab = label[old_of_new]
+    assert (np.diff(lab) >= 0).all()         # chunks contiguous, in order
 
 
 def test_single_partition_is_whole_mesh(mesh):
@@ -148,8 +141,8 @@ def test_native_ghost_closure_parity(ghost_layers):
     (same global_ids, faces, normals, comm lists)."""
     import os
 
-    from cfd_proxy_tpu.native import lib
-    import cfd_proxy_tpu.mesh.partition as mp
+    from cfd_proxy.native import lib
+    import cfd_proxy.mesh.partition as mp
 
     if lib() is None:
         pytest.skip("native lib not built")
@@ -179,8 +172,8 @@ def test_comm_signature_grouping_many_entries():
     """rcb_owned_order groups the comm region by exact entry signature for
     ANY number of comm entries — the int64-bitmask formulation capped at 62,
     which K=3 closures at 64+ shards exceed (measured 68 at 96 parts)."""
-    from cfd_proxy_tpu.mesh.model import CommEntry, MeshPartition
-    from cfd_proxy_tpu.mesh.partition import rcb_owned_order
+    from cfd_proxy.mesh.model import CommEntry, MeshPartition
+    from cfd_proxy.mesh.partition import rcb_owned_order
 
     m = generate_mesh(9, 8, 7, jitter=0.05, diag_frac=0.2, seed=3)
     nowned = m.npoint
@@ -198,7 +191,7 @@ def test_comm_signature_grouping_many_entries():
         part_id=0, npart=8, nowned=nowned, coords=m.coords,
         global_ids=np.arange(nowned, dtype=np.int64), faces=m.faces,
         normals=m.normals, volume=np.ones(nowned), comm=comm)
-    new_of_old = rcb_owned_order(part, block=64, degree_sort=True)
+    new_of_old = rcb_owned_order(part, block=64)
     assert sorted(new_of_old) == list(range(nowned))
     # exact signature per old point
     sig_of = {}
@@ -222,7 +215,7 @@ def test_comm_signature_grouping_many_entries():
 def test_rcb_assign_tie_fallback_deterministic():
     """jitter=0 grids have coordinate ties at every cut; rcb_assign must fall
     back to the stable sort and stay balanced + deterministic."""
-    from cfd_proxy_tpu.mesh.partition import rcb_assign
+    from cfd_proxy.mesh.partition import rcb_assign
 
     m = generate_mesh(8, 8, 8, jitter=0.0, diag_frac=0.0, seed=0)
     o1 = rcb_assign(m.coords, 6)

@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh, make_state
-from cfd_proxy_tpu.ops.golden import compute_gradients_gg
-from cfd_proxy_tpu.ops.prep import SweepPads, build_sweep_plan
-from cfd_proxy_tpu.ops.sweep_jax import (
+from cfd_proxy.mesh.generator import generate_mesh, make_state
+from cfd_proxy.ops.golden import compute_gradients_gg
+from cfd_proxy.ops.prep import SweepPads, build_sweep_plan
+from cfd_proxy.ops.sweep_jax import (
     device_sweep,
     sweep_boundary,
     sweep_bulk,

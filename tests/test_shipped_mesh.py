@@ -14,28 +14,28 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_shipped_partitions_read_and_run():
-    from cfd_proxy_tpu.mesh.reader import partition_path, read_partition
-    from cfd_proxy_tpu.models import GreenGaussPallas
-    from cfd_proxy_tpu.mesh.generator import make_state
-    from cfd_proxy_tpu.mesh import netcdf3
+    from cfd_proxy.mesh.reader import partition_path, read_partition
+    from cfd_proxy.models import GreenGaussSweep
+    from cfd_proxy.mesh.generator import make_state
+    from cfd_proxy.mesh import netcdf3
 
     prefix = os.path.join(DATA, "small")
     parts = [read_partition(partition_path(prefix, i, 4)) for i in range(4)]
     assert sum(p.nowned for p in parts) == 960
     assert max(p.nrounds for p in parts) == 2
-    model = GreenGaussPallas(parts, 7, bp=128)
+    model = GreenGaussSweep(parts, 7)
     gvar = make_state(960, 7, seed=1)
     state = model.distribute_state(gvar)
     g = model.gather_global(model.step(state, "overlap"))
     # compare against the single-partition shipped mesh
     (p1,) = [read_partition(partition_path(prefix, 0, 1))]
-    m1 = GreenGaussPallas([p1], 7, bp=128)
+    m1 = GreenGaussSweep([p1], 7)
     g1 = m1.gather_global(m1.step(m1.distribute_state(gvar), "bulk"))
     assert np.abs(g - g1).max() / max(1.0, np.abs(g1).max()) < 1e-5
 
 
 def test_shipped_golden_bitmatch():
-    from cfd_proxy_tpu.tools.golden import main
+    from cfd_proxy.tools.golden import main
 
     ref = os.path.join(DATA, "small_golden.nc")
     rc = main(["check", "--nx", "12", "--ny", "10", "--nz", "8", "--ref", ref])

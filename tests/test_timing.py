@@ -2,7 +2,7 @@
 
 import math
 
-from cfd_proxy_tpu.utils.timing import IterationStats, format_stats_table
+from cfd_proxy.utils.timing import IterationStats, format_stats_table
 
 
 def test_stats_summary():
@@ -30,10 +30,9 @@ def test_nan_sample_propagates():
 
 
 def test_two_point_sampler_cancels_dispatch_overhead():
-    """The shared primitive (solver/kbench/mbench/icibench/solver_attrib all
-    ride it): per-iteration time = (t_big - t_small)/iters, dispatch
+    """The shared primitive (solver and mbench ride it): per-iteration time = (t_big - t_small)/iters, dispatch
     overhead cancelled."""
-    from cfd_proxy_tpu.utils.timing import two_point_sampler
+    from cfd_proxy.utils.timing import two_point_sampler
 
     t = {"now": 0.0}
     sleeps = []
@@ -58,7 +57,7 @@ def test_two_point_sampler_cancels_dispatch_overhead():
 
 
 def test_two_point_sampler_noise_floor_returns_none():
-    from cfd_proxy_tpu.utils.timing import two_point_sampler
+    from cfd_proxy.utils.timing import two_point_sampler
 
     t = {"now": 0.0}
 

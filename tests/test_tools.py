@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from cfd_proxy_tpu.mesh.reader import partition_path, read_partition
-from cfd_proxy_tpu.tools.golden import main as golden_main
-from cfd_proxy_tpu.tools.partition import main as partition_main
+from cfd_proxy.mesh.reader import partition_path, read_partition
+from cfd_proxy.tools.golden import main as golden_main
+from cfd_proxy.tools.partition import main as partition_main
 
 
 def test_partition_tool_and_solver_mesh_input(tmp_path):
@@ -15,8 +15,8 @@ def test_partition_tool_and_solver_mesh_input(tmp_path):
     parts = [read_partition(partition_path(prefix, i, 4)) for i in range(4)]
     assert sum(p.nowned for p in parts) == 10 * 9 * 8
 
-    # solver reads the files (pallas backend, interpret on CPU)
-    from cfd_proxy_tpu.solver import SolverConfig, run
+    # solver reads the files (sweep backend)
+    from cfd_proxy.solver import SolverConfig, run
 
     cfg = SolverConfig(mesh_prefix=prefix, parts=4, iters=2, warmup=1,
                        schedule="early", verify=True)
@@ -32,96 +32,46 @@ def test_golden_dump_check_roundtrip(tmp_path):
     assert golden_main(["check", "--nx", "8", "--ref", ref]) == 0
     # device path within documented f32 bound, distributed
     assert golden_main(["check", "--nx", "8", "--ref", ref,
-                        "--backend", "pallas", "--parts", "2",
+                        "--backend", "sweep", "--parts", "2",
                         "--schedule", "overlap"]) == 0
     # perturbed config must FAIL
     assert golden_main(["check", "--nx", "8", "--ref", ref, "--seed", "1"]) == 1
 
 
-def test_scaling_model_runs(capsys):
-    from cfd_proxy_tpu.tools.scaling_model import main as sm_main
+def _model_layout(npart):
+    from cfd_proxy.mesh.generator import generate_mesh
+    from cfd_proxy.mesh.partition import partition_mesh
+    from cfd_proxy.models import GreenGaussSweep
 
-    assert sm_main(["--nx", "10", "--parts", "1", "2", "4"]) == 0
-    out = capsys.readouterr().out
-    assert "MODEL (not measurement)" in out
-    assert out.strip().splitlines()[-1].split()[0] == "4"
-
-
-def test_scaling_model_rate_table(capsys):
-    """Measured-rate interpolation: exact at anchors, clamped outside the
-    measured range, between neighbors inside; --ns-per-face still overrides
-    with a constant; the default is the f32 table (not a constant)."""
-    from cfd_proxy_tpu.tools.scaling_model import (RATE_TABLES, main as sm_main,
-                                                   rate_ns_per_face)
-
-    t = sorted(RATE_TABLES["f32"])
-    assert rate_ns_per_face(t[0][0], t) == t[0][1]
-    assert rate_ns_per_face(t[-1][0], t) == t[-1][1]
-    assert rate_ns_per_face(1, t) == t[0][1]          # clamp below
-    assert rate_ns_per_face(10**10, t) == t[-1][1]    # clamp above
-    lo, hi = sorted((0.0559, 0.1386))                 # 390k / 2.8M anchors
-    assert lo < rate_ns_per_face(1_000_000, t) < hi
-    assert sm_main(["--nx", "10", "--parts", "1", "2"]) == 0
-    out = capsys.readouterr().out
-    assert "measured f32 rate table" in out
-    assert sm_main(["--nx", "10", "--parts", "1", "2",
-                    "--ns-per-face", "0.2"]) == 0
-    assert "constant (override)" in capsys.readouterr().out
+    m = generate_mesh(24, 24, 24, jitter=0.05, diag_frac=0.2, seed=0)
+    return GreenGaussSweep(partition_mesh(m, npart), 7)
 
 
 def test_shard_geometry_uses_production_layout():
-    """shard_geometry must build the comm-first relabeled layout: raw
-    partitions never satisfy the segmented-lane contiguity requirement, so
-    a raw-layout geometry silently charges pack_cols = every column and the
-    model never credits the built segmented pack (the bug the first
-    north-star evaluation had).  On a mesh whose shard boundary is one big
-    signature group, at least one phase must segment and pack_cols must sit
-    far below the charge-everything fallback."""
-    from cfd_proxy_tpu.mesh.generator import generate_mesh
-    from cfd_proxy_tpu.tools.scaling_model import shard_geometry
-
-    m = generate_mesh(24, 24, 24, jitter=0.05, diag_frac=0.2, seed=0)
-    geo = shard_geometry(m, 2)
-    assert all(len(s) == 6 for s in geo["shards"])
-    for nface, nfb, n_ici, n_dcn, pack_cols, n_tail_ph in geo["shards"]:
-        # round-5 interval layout: the canonical phase-signature relabel
-        # merges every group into interval slices — NO gather lanes and NO
-        # tail phases remain at model-built low-P topologies (the gate
-        # numbers rest on this; a regression here silently re-charges the
-        # pack)
-        assert pack_cols == 0, pack_cols
-        assert n_tail_ph == 0, n_tail_ph
+    """The model's comm-first, phase-signature relabel makes every real
+    phase's send list a few interval slices in the transposed layout: on a
+    mesh whose shard boundary is one big signature group, every phase is
+    segmented, no gather tail remains, and the pack lowers to slices."""
+    model = _model_layout(2)
+    lay = model.layout
+    for k, perm in enumerate(lay.perms):
+        if not perm:
+            continue
+        assert lay.seg_offs[k] is not None, k
+        assert lay.tail_offs[k] is None, k
+        assert model._pack_modes[k] in ("slice", "segs"), model._pack_modes
 
 
 def test_shard_geometry_interval_elimination_p8():
-    """The headline-claim geometry: at P=8 every shard's pack is pure
-    interval slices (pack_cols = 0, no tail phases) — what lets the model
-    anchor the P=8 chain at the measured pure-slice 5 µs."""
-    from cfd_proxy_tpu.mesh.generator import generate_mesh
-    from cfd_proxy_tpu.tools.scaling_model import shard_geometry
-
-    m = generate_mesh(24, 24, 24, jitter=0.05, diag_frac=0.2, seed=0)
-    geo = shard_geometry(m, 8)
-    assert all(s[4] == 0 and s[5] == 0 for s in geo["shards"]), \
-        [(s[4], s[5]) for s in geo["shards"]]
-
-
-def test_scaling_model_multislice(capsys):
-    """--slice-size charges inter-slice (DCN) phases at --dcn-gbps: with a
-    slow DCN the modeled rates must drop strictly below the single-slice
-    prediction at the same P, and the header must flag the assumption."""
-    from cfd_proxy_tpu.tools.scaling_model import main as sm_main
-
-    def bulk_gfps(argv):
-        assert sm_main(argv) == 0
-        out = capsys.readouterr().out
-        return float(out.strip().splitlines()[-1].split()[2]), out
-
-    one, _ = bulk_gfps(["--nx", "10", "--parts", "4"])
-    multi, out = bulk_gfps(["--nx", "10", "--parts", "4",
-                            "--slice-size", "2", "--dcn-gbps", "1"])
-    assert "DCN phases at 1.0 GB/s" in out
-    assert multi < one
+    """At P=8 every shard's pack is pure interval slices: no phase falls
+    back to the column gather and no phase carries a gather tail."""
+    model = _model_layout(8)
+    lay = model.layout
+    real = [k for k, perm in enumerate(lay.perms) if perm]
+    assert real, "an 8-way partition must exchange"
+    assert all(lay.tail_offs[k] is None for k in real)
+    assert all(model._pack_modes[k] != "gather" for k in real), \
+        model._pack_modes
 
 
 def test_fixture_generate_and_verify_roundtrip(tmp_path, monkeypatch):
@@ -131,7 +81,7 @@ def test_fixture_generate_and_verify_roundtrip(tmp_path, monkeypatch):
     MISMATCH (tiny recipe so the test stays fast)."""
     import json as _json
 
-    import cfd_proxy_tpu.tools.fixture as fx
+    import cfd_proxy.tools.fixture as fx
 
     tiny = dict(fx.RECIPE, nx=6, ny=6, nz=5, parts=[2])
     monkeypatch.setattr(fx, "RECIPE", tiny)
@@ -154,126 +104,6 @@ def test_fixture_generate_and_verify_roundtrip(tmp_path, monkeypatch):
                     "--manifest", manifest]) == 1
 
 
-def test_kbench_interpret_smoke(capsys):
-    """kernel microbench runs in interpret mode and the golden check passes."""
-    from cfd_proxy_tpu.tools.kbench import main as kbench_main
-
-    rc = kbench_main(["--nx", "6", "--bp", "128", "--iters", "2",
-                      "--variants", "prod,bf16src,bf16sw", "--check"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    # every gg-semantics variant gets its own golden fingerprint line
-    assert out.count("OK") >= 3
-
-
-def test_kbench_paired_mode(capsys):
-    """Paired mode runs end to end in interpret mode and reports the median
-    per-pair ratio with IQR (interpret iterations are slow enough that the
-    two-point samples clear the dispatch-noise floor on CPU)."""
-    from cfd_proxy_tpu.tools.kbench import main as kbench_main
-
-    rc = kbench_main(["--nx", "6", "--bp", "128", "--iters", "2",
-                      "--paired", "prod,bf16sw", "--repeats", "2"])
-    assert rc == 0
-    assert "median ratio" in capsys.readouterr().out
-
-
-def test_kbench_flux_variants(capsys):
-    """The flux variants (production compact flux + the factored-upwind
-    experiment) both pass the FLUX-golden fingerprint check — pins that the
-    factored form stays algebraically faithful (BASELINE.md: measured
-    perf-NEUTRAL, kept as the record)."""
-    from cfd_proxy_tpu.tools.kbench import main as kbench_main
-
-    rc = kbench_main(["--nx", "6", "--bp", "128", "--iters", "2",
-                      "--variants", "cflux,cflux_fact,cstream_flux,cstream_c",
-                      "--check"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert out.count("OK") >= 2      # the stream twins are not checked
-
-
-def test_kbench_bp_alt_variants(capsys):
-    """--bp-alt builds a second plan; the alt variants run and check clean."""
-    from cfd_proxy_tpu.tools.kbench import main as kbench_main
-
-    rc = kbench_main(["--nx", "6", "--bp", "128", "--bp-alt", "256",
-                      "--iters", "2", "--variants", "prod_alt,bf16sw_alt"])
-    assert rc == 0
-    assert "alt: bp=256" in capsys.readouterr().out
-
-
-def test_kbench_compact_variants(capsys):
-    """The --kcompact analogue variants (prefix layout + flat attribution
-    control) run and pass the on-device fingerprint check."""
-    from cfd_proxy_tpu.tools.kbench import main as kbench_main
-
-    rc = kbench_main(["--nx", "6", "--bp", "128", "--iters", "2",
-                      "--variants", "compact,compact_bsw,flat", "--check"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "check compact:" in out and "OK" in out
-
-
-def test_kbench_bso_experiment_variants(capsys):
-    """The bf16-stack attribution variants stay faithful: the stream twin
-    (cstream_bso) runs, and the op-cut/relayout experiments (bso_fold,
-    bso_wsum, bso_acc3) pass the golden fingerprint at the bf16 bound —
-    pins that the recorded dead-end measurements (BASELINE.md) compared
-    algebraically faithful kernels.  bp=256 with nx=6 exercises the
-    partial-width concatenate branch (see test_kbench_i8_variant)."""
-    from cfd_proxy_tpu.tools.kbench import main as kbench_main
-
-    rc = kbench_main(["--nx", "6", "--bp", "256", "--iters", "2",
-                      "--variants",
-                      "compact_bso,cstream_bso,bso_fold,bso_wsum,bso_acc3",
-                      "--check"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    for name in ("compact_bso", "bso_fold", "bso_wsum", "bso_acc3"):
-        assert f"check {name}:" in out
-    assert out.count("OK") >= 4
-
-
-def test_kbench_i8_variant(capsys):
-    """The int8-delta experiment variant runs and stays inside its
-    block-relative accuracy bound (on-device fingerprint check)."""
-    from cfd_proxy_tpu.tools.kbench import main as kbench_main
-
-    # bp=256 with nx=6 (216 points) makes every prefix width 128 < bp, so
-    # the kernel's partial-width concatenate branch — the one that runs on
-    # hardware at bp=4096 — is actually exercised (at bp=128 every width
-    # rounds up to exactly bp and only the full-width path runs)
-    rc = kbench_main(["--nx", "6", "--bp", "256", "--iters", "2",
-                      "--variants", "compact_i8", "--check"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "check compact_i8:" in out and "OK" in out
-
-
-def test_icibench_interpret_smoke(capsys):
-    """icibench's RDMA kernel traces and runs under interpret mode (the
-    real measurement needs hardware; this pins the code path)."""
-    from cfd_proxy_tpu.tools.icibench import main as icibench_main
-
-    rc = icibench_main(["--phases", "1", "--mb", "0.01", "--iters", "2"])
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "GB/s payload" in out
-
-
-def test_solver_attrib_smoke(capsys):
-    """The attribution harness builds and runs every knockout body (timing
-    may sit below the noise floor on a tiny CPU run — rc 1 is fine)."""
-    from cfd_proxy_tpu.tools.solver_attrib import main as attrib_main
-
-    for mode in ("noop", "all"):
-        rc = attrib_main(["--nx", "8", "--mode", mode, "--iters", "3",
-                          "--repeats", "2"])
-        assert rc in (0, 1)
-        assert f"mode={mode}" in capsys.readouterr().out
-
-
 def test_golden_flux_model_roundtrip(tmp_path):
     ref = str(tmp_path / "flux.nc")
     assert golden_main(["dump", "--nx", "8", "--model", "flux",
@@ -281,5 +111,5 @@ def test_golden_flux_model_roundtrip(tmp_path):
     assert golden_main(["check", "--nx", "8", "--model", "flux",
                         "--ref", ref]) == 0
     assert golden_main(["check", "--nx", "8", "--model", "flux", "--ref", ref,
-                        "--backend", "pallas", "--parts", "2",
+                        "--backend", "sweep", "--parts", "2",
                         "--schedule", "overlap"]) == 0

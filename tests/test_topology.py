@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from cfd_proxy_tpu.mesh.generator import generate_mesh
-from cfd_proxy_tpu.mesh.partition import partition_mesh
-from cfd_proxy_tpu.parallel.tlayout import build_tlayout
-from cfd_proxy_tpu.parallel.topology import build_halo_topology
+from cfd_proxy.mesh.generator import generate_mesh
+from cfd_proxy.mesh.partition import partition_mesh
+from cfd_proxy.parallel.tlayout import build_tlayout
+from cfd_proxy.parallel.topology import build_halo_topology
 
 
 @pytest.fixture(scope="module", params=[(4, 1), (8, 2), (5, 1)])
@@ -61,7 +61,7 @@ def test_asymmetric_comm_entry_raises():
     e = src.comm[0]
     bad = dataclasses.replace(e, sendidx=e.sendidx[:0])
     src.comm[src.comm.index(e)] = bad
-    from cfd_proxy_tpu.utils.errors import CheckError
+    from cfd_proxy.utils.errors import CheckError
 
     with pytest.raises(CheckError, match="size mismatch"):
         build_halo_topology(parts, max(p.npoint for p in parts) + 1)
@@ -71,13 +71,11 @@ def test_tlayout_permutation_completion(setup):
     parts, topo = setup
     lay = build_tlayout(parts, topo)
     P = len(parts)
-    for k in range(lay.nphases):
-        # dsts/srcs rows form a full permutation (uniform RDMA participation)
-        assert sorted(lay.dsts[:, k]) == list(range(P))
-        assert sorted(lay.srcs[:, k]) == list(range(P))
-        # consistency: srcs is the inverse of dsts
-        for d in range(P):
-            assert lay.srcs[lay.dsts[d, k], k] == d
+    assert lay.nphases == max(topo.nphases, 1)
+    for k, perm in enumerate(lay.perms):
+        # each phase is a partial matching over the P shards
+        assert len({s for s, _ in perm}) == len(perm) <= P
+        assert len({d for _, d in perm}) == len(perm)
     # every local point has a unique device column
     for lm in lay.locmap:
         assert np.unique(lm).size == lm.size
@@ -93,57 +91,36 @@ def test_tlayout_permutation_completion(setup):
             assert (cols < lay.ghost_start + (k + 1) * lay.s_max).all()
 
 
-def test_slice_aware_phases_pure_and_ordered():
-    """Multi-slice scheduling (SURVEY.md §5.8): with slice_size set, no phase
-    mixes intra-slice (ICI) and inter-slice (DCN) edges, and within each
-    round every ICI phase precedes every DCN phase."""
+@pytest.mark.parametrize("ghost_layers", [1, 2])
+@pytest.mark.parametrize("npart", [4, 8])
+def test_greedy_coloring_phase_bound(npart, ghost_layers):
+    """Greedy edge coloring of each round's comm multigraph needs at most
+    2·maxdeg−1 phases (maxdeg = the most sends or receives of one shard in
+    that round), and the coloring is deterministic."""
     mesh = generate_mesh(10, 9, 8, jitter=0.05, diag_frac=0.2, seed=0)
-    parts = partition_mesh(mesh, 8, ghost_layers=2)
+    parts = partition_mesh(mesh, npart, ghost_layers=ghost_layers)
     npoint_pad = max(p.npoint for p in parts) + 1
-    topo = build_halo_topology(parts, npoint_pad, slice_size=4)
-    assert any(ph.inter_slice for ph in topo.phases), "mesh has DCN edges"
-    for ph in topo.phases:
-        kinds = {(s // 4) != (d // 4) for (s, d) in ph.perm}
-        assert kinds == {ph.inter_slice}, "phase mixes ICI and DCN edges"
+    topo = build_halo_topology(parts, npoint_pad)
     for r in range(topo.nrounds):
-        flags = [ph.inter_slice for ph in topo.phases if ph.round == r]
-        assert flags == sorted(flags), "a DCN phase precedes an ICI phase"
-    # edge set identical to the slice-oblivious schedule
-    plain = build_halo_topology(parts, npoint_pad)
-    edges = lambda t: sorted((ph.round, s, d) for ph in t.phases
-                             for (s, d) in ph.perm)
-    assert edges(topo) == edges(plain)
-
-
-def test_slice_aware_results_bit_identical():
-    """Phase reordering must not change values: every ghost slot is filled by
-    exactly one phase (f64 XLA backend, exact mode)."""
-    import jax
-    import jax.numpy as jnp
-
-    from cfd_proxy_tpu.mesh.generator import make_state
-    from cfd_proxy_tpu.models import GreenGaussModel
-
-    mesh = generate_mesh(9, 8, 7, jitter=0.05, diag_frac=0.2, seed=1)
-    gvar = make_state(mesh.npoint, 5, seed=2)
-    parts = partition_mesh(mesh, 8)
-    outs = {}
-    for ss in (None, 4, 2):
-        model = GreenGaussModel(parts, 5, dtype=jnp.float64, slice_size=ss)
-        var = model.distribute_state(gvar)
-        outs[ss] = np.asarray(model.step(var, "overlap", exact=True))
-    np.testing.assert_array_equal(outs[None], outs[4])
-    np.testing.assert_array_equal(outs[None], outs[2])
+        edges = [(s, d) for ph in topo.phases if ph.round == r
+                 for (s, d) in ph.perm]
+        deg = max(max(sum(1 for s, _ in edges if s == i),
+                      sum(1 for _, d in edges if d == i))
+                  for i in range(npart))
+        nph = sum(1 for ph in topo.phases if ph.round == r)
+        assert nph <= 2 * deg - 1, (r, nph, deg)
+    again = build_halo_topology(parts, npoint_pad)
+    assert [ph.perm for ph in again.phases] == [ph.perm for ph in topo.phases]
 
 
 def test_entry_phases_helper():
-    """topology.entry_phases — the ONE entry→phase rule shared by the model
-    and shard_geometry: every sending entry maps to the phase whose perm
+    """topology.entry_phases — the ONE entry→phase rule the model's relabel
+    uses: every sending entry maps to the phase whose perm
     carries its (shard, partner) edge at its round; recv-only entries
     default to 0 (inert — empty membership rows)."""
-    from cfd_proxy_tpu.mesh.generator import generate_mesh
-    from cfd_proxy_tpu.mesh.partition import partition_mesh
-    from cfd_proxy_tpu.parallel.topology import (build_halo_topology,
+    from cfd_proxy.mesh.generator import generate_mesh
+    from cfd_proxy.mesh.partition import partition_mesh
+    from cfd_proxy.parallel.topology import (build_halo_topology,
                                                  entry_phases)
 
     m = generate_mesh(8, 7, 6, jitter=0.05, diag_frac=0.2, seed=0)
